@@ -1,13 +1,13 @@
 // Native buffered/asynchronous dump writer.
 //
-// TPU-native analogue of the reference's FileIO policy classes
+// Native analogue of the reference's FileIO policy classes
 // (src/util/io/FileIO.h): StandardIOPolicy (synchronous stdio) and
 // P2PIOPolicy (double-buffered relay I/O).  Diagnostics dumps and
 // checkpoints stream multi-GB blocks; this writer overlaps file output with
 // the simulation by queueing buffers to a background thread per open file,
 // so the Python host thread returns to dispatching device work immediately.
 //
-// C ABI (consumed via ctypes from vpic_tpu/native/io.py):
+// C ABI (consumed via ctypes from vpic_jax/native/io.py):
 //   vpic_write_file(path, buf, n)          synchronous one-shot write
 //   h = vpic_writer_open(path)             async writer handle
 //   vpic_writer_write(h, buf, n)           enqueue a copy of buf (async)

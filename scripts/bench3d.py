@@ -1,13 +1,11 @@
 #!/usr/bin/env python
-"""3-D bench artifact: runs bench.py --deck harris3d over the standard
-tiers and writes BENCH3D_r{N}.json at the repo root (one json object per
-tier) so 3-D regressions are caught mechanically like the 2-D number.
+"""3-D harris throughput over the standard tiers, in one process (the tiers
+share the persistent compile cache): one bench.py JSON line per tier.
 
-Usage: bench3d.py [round_number]
+Usage: bench3d.py
 """
 
 import json
-import subprocess
 import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
@@ -16,25 +14,11 @@ TIERS = ((32, 32, 32), (32, 32, 128), (64, 64, 16))
 
 
 def main():
-    rnd = sys.argv[1] if len(sys.argv) > 1 else "05"
-    root = __file__.rsplit("/", 2)[0]
-    out = []
+    import bench
+    bench.require_gpu()
     for nx, nz, nppc in TIERS:
-        r = subprocess.run(
-            [sys.executable, f"{root}/bench.py", "--deck", "harris3d",
-             str(nx), str(nz), str(nppc)],
-            capture_output=True, text=True, timeout=1800)
-        line = [l for l in r.stdout.splitlines() if l.startswith("{")]
-        if line:
-            out.append(json.loads(line[-1]))
-            print(line[-1], flush=True)
-        else:
-            print(f"tier {nx}x{nz}x{nppc} FAILED:\n{r.stderr[-2000:]}",
-                  flush=True)
-    path = f"{root}/BENCH3D_r{rnd}.json"
-    with open(path, "w") as fh:
-        json.dump(out, fh, indent=1)
-    print(f"wrote {path}")
+        print(json.dumps(bench.run_deck("harris3d", [nx, nz, nppc])),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 import jax
 import numpy as np
 
-import vpic_tpu as vt
+import vpic_jax as vt
 
 
 def build(nx, ny, nz, topology=(1, 1, 1)):

@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
 # Build + run a two-stream instability deck on the reference VPIC
-# (parameters matched to vpic_tpu/models/twostream.py: 64 cells over
+# (parameters matched to vpic_jax/models/twostream.py: 64 cells over
 # 3 fastest-growing wavelengths, 64 ppc per beam, v0 = 0.2, vth = 0.005,
 # neutralizing mi/me = 1836 ions), energies dumped every 2 steps for the
 # linear-phase growth-rate fit (scripts/twostream_rate.py).
@@ -18,7 +18,7 @@ mkdir -p "$RUN"
 cat > "$RUN/twostream.cxx" <<'EOF'
 // Two-stream instability: symmetric counter-streaming electron beams +
 // neutralizing heavy ions in a 1-D periodic box (parameters matched to
-// vpic_tpu/models/twostream.py for the growth-rate comparison).
+// vpic_jax/models/twostream.py for the growth-rate comparison).
 
 begin_globals {
   double energies_interval;

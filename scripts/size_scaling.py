@@ -1,8 +1,7 @@
 #!/usr/bin/env python
 """Throughput vs problem size for the harris deck (dev tool).
 
-Usage: size_scaling.py [--chart]   (--chart forces the 2-D brick-chart
-kernel; default is the auto policy)
+Usage: size_scaling.py
 """
 
 import sys
@@ -12,16 +11,13 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import jax
 
-from vpic_tpu.models import harris
-
-CHART = "--chart" in sys.argv[1:]
+from vpic_jax.models import harris
+from vpic_jax.utils.compile_cache import enable_compile_cache
 
 
 def measure(nx, ny, nppc, n_steps=50):
     p = harris.HarrisParams(nx=nx, ny=ny, nppc=nppc)
     sim = harris.build(p)
-    if CHART:
-        sim.pallas_chart2d = True
     state = sim.initialize()
     adv = sim.make_multi_step(n_steps)
     state = adv(state)
@@ -37,6 +33,7 @@ def measure(nx, ny, nppc, n_steps=50):
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     for nx, ny, nppc in ((64, 64, 64), (64, 64, 256), (128, 128, 64),
                          (128, 128, 256), (256, 256, 64)):
         try:

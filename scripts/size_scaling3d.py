@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Throughput vs problem size for the 3-D reconnection deck (dev tool).
 
-Usage: size_scaling3d.py [--xla]   (--xla forces the unfused path)
+Usage: size_scaling3d.py
 """
 
 import sys
@@ -11,17 +11,14 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import jax
 
-from vpic_tpu.models import reconnection
-
-XLA = "--xla" in sys.argv[1:]
+from vpic_jax.models import reconnection
+from vpic_jax.utils.compile_cache import enable_compile_cache
 
 
 def measure(nx, ny, nz, nppc, n_steps=50):
     p = reconnection.ReconnectionParams(
         nx=nx, ny=ny, nz=nz, nppc=nppc, tau_coll_interval=10 ** 9)
     sim = reconnection.build(p)
-    if XLA:
-        sim.use_pallas = False
     state = sim.initialize()
     adv = sim.make_multi_step(n_steps)
     state = adv(state)
@@ -37,6 +34,7 @@ def measure(nx, ny, nz, nppc, n_steps=50):
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     for nx, ny, nz, nppc in ((32, 32, 32, 32), (32, 32, 32, 128),
                              (64, 64, 64, 16)):
         try:

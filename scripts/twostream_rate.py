@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Two-stream linear growth-rate comparison: reference VPIC vs vpic_tpu
+"""Two-stream linear growth-rate comparison: reference VPIC vs vpic_jax
 (VERDICT round-4 item 7 -- second-deck physics parity).
 
 Fits the exponential growth of the longitudinal E-field energy out of
-shot noise on matched decks (vpic_tpu/models/twostream.py parameters;
+shot noise on matched decks (vpic_jax/models/twostream.py parameters;
 reference runs from scripts/run_reference_twostream.sh, one per seed)
 and compares the SEED-AVERAGED rates -- a single 64-ppc, 3-wavelength
 box has ~20% mode-competition seed noise in the fitted rate, so the
@@ -11,7 +11,9 @@ parity claim is made on the ensemble mean.  Both are also checked
 against the analytic cold-symmetric-beam maximum gamma = wpe/sqrt(8)
 (warm corrections push the realized rate below it).
 
-Usage: twostream_rate.py [--tpu] [--seeds N] [--refdir /tmp/ref_ts_]
+Usage: twostream_rate.py [--device] [--seeds N] [--refdir /tmp/ref_ts_]
+
+The repo runs on the CPU unless --device asks for JAX's default device.
 """
 
 import sys
@@ -44,9 +46,9 @@ def main():
     refdir = args[args.index("--refdir") + 1] if "--refdir" in args \
         else "/tmp/ref_ts_"
     import jax
-    if "--tpu" not in args:
+    if "--device" not in args:
         jax.config.update("jax_platforms", "cpu")
-    from vpic_tpu.models import twostream
+    from vpic_jax.models import twostream
 
     g_refs = []
     for s in range(nseeds):
@@ -81,7 +83,7 @@ def main():
     mr, mu = np.mean(g_refs), np.mean(g_uss)
     sr, su = np.std(g_refs), np.std(g_uss)
     print(f"reference : gamma/wpe = {mr:.4f} +- {sr:.4f} ({nseeds} seeds)")
-    print(f"vpic_tpu  : gamma/wpe = {mu:.4f} +- {su:.4f} ({nseeds} seeds)")
+    print(f"vpic_jax  : gamma/wpe = {mu:.4f} +- {su:.4f} ({nseeds} seeds)")
     print(f"analytic  : gamma/wpe = {ana:.4f} (cold symmetric beams)")
     rel = abs(mu - mr) / mr
     print(f"ref-vs-repo rel diff of means: {rel:.3f}")

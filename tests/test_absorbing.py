@@ -10,9 +10,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vpic_tpu.grid import ABSORB_FIELDS, partition_periodic_box
-from vpic_tpu.state import FieldState, MaterialCoeffs
-from vpic_tpu.ops import fields as F
+from vpic_jax.grid import ABSORB_FIELDS, partition_periodic_box
+from vpic_jax.state import FieldState, MaterialCoeffs
+from vpic_jax.ops import fields as F
 
 
 def test_absorbing_wall_eats_pulse():
@@ -56,13 +56,13 @@ def test_absorbing_wall_eats_pulse():
 
 def test_cli_runner(tmp_path):
     # a tiny weibel via a .py deck (the default-size built-in is too slow
-    # under the interpret-mode fused kernel used on CPU); built-in NAME
-    # resolution is covered by the unknown-name error path below
+    # on CPU); built-in NAME resolution is covered by the unknown-name
+    # error path below
     deck = tmp_path / "small.py"
     deck.write_text(
         "import jax\n"
         "jax.config.update('jax_platforms', 'cpu')\n"
-        "from vpic_tpu.models import weibel\n"
+        "from vpic_jax.models import weibel\n"
         "def build():\n"
         "    return weibel.build(weibel.WeibelParams(nx=8, ny=8, nppc=4,\n"
         "                                            Lx=8.0, Ly=8.0))\n")
@@ -70,7 +70,7 @@ def test_cli_runner(tmp_path):
     env["JAX_PLATFORMS"] = "cpu"
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run(
-        [sys.executable, "-m", "vpic_tpu", str(deck), "--num-step", "2",
+        [sys.executable, "-m", "vpic_jax", str(deck), "--num-step", "2",
          "--energies", str(tmp_path / "en"),
          "--checkpt", str(tmp_path / "ck") + ":2"],
         capture_output=True, text=True, cwd=repo, env=env)
@@ -78,7 +78,7 @@ def test_cli_runner(tmp_path):
     assert os.path.exists(tmp_path / "en")
     assert os.path.exists(str(tmp_path / "ck") + ".2.npz")
     out = subprocess.run(
-        [sys.executable, "-m", "vpic_tpu", "no_such_deck"],
+        [sys.executable, "-m", "vpic_jax", "no_such_deck"],
         capture_output=True, text=True, cwd=repo, env=env)
     assert out.returncode != 0 and "weibel" in out.stderr
 
@@ -91,7 +91,7 @@ def test_cli_py_deck_chunked_checkpoints(tmp_path):
     deck.write_text(
         "import jax\n"
         "jax.config.update('jax_platforms', 'cpu')\n"
-        "from vpic_tpu.models import weibel\n"
+        "from vpic_jax.models import weibel\n"
         "def build():\n"
         "    sim = weibel.build(weibel.WeibelParams(nx=8, ny=8, nppc=4,\n"
         "                                           Lx=8.0, Ly=8.0))\n"
@@ -102,7 +102,7 @@ def test_cli_py_deck_chunked_checkpoints(tmp_path):
     env["JAX_PLATFORMS"] = "cpu"
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run(
-        [sys.executable, "-m", "vpic_tpu", str(deck),
+        [sys.executable, "-m", "vpic_jax", str(deck),
          "--energies", str(tmp_path / "en"),
          "--checkpt", str(tmp_path / "ck") + ":6"],
         capture_output=True, text=True, cwd=repo, env=env)
@@ -115,7 +115,7 @@ def test_cli_py_deck_chunked_checkpoints(tmp_path):
     assert [int(r[0]) for r in rows] == [0, 4, 8, 12]
     # restore mid-interval (step 6): next dump must realign to step 8
     out = subprocess.run(
-        [sys.executable, "-m", "vpic_tpu", str(deck),
+        [sys.executable, "-m", "vpic_jax", str(deck),
          "--restore", str(tmp_path / "ck") + ".6",
          "--energies", str(tmp_path / "en2")],
         capture_output=True, text=True, cwd=repo, env=env)

@@ -60,8 +60,8 @@ def test_power_spectrum_parseval_and_peak():
 
 def test_field_frames_sequence(tmp_path):
     import jax
-    import vpic_tpu as vt
-    from vpic_tpu import dump as D
+    import vpic_jax as vt
+    from vpic_jax import dump as D
     from utilities import read_dumps  # noqa: F401  (import path check)
 
     sim = vt.Simulation(seed=0)

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vpic_tpu import boundary_ops as BO
-from vpic_tpu import emitter as E
-from vpic_tpu.deck import Simulation
-from vpic_tpu.grid import ABSORB_FIELDS, ABSORB_PARTICLES, BOUNDARY
+from vpic_jax import boundary_ops as BO
+from vpic_jax import emitter as E
+from vpic_jax.deck import Simulation
+from vpic_jax.grid import ABSORB_FIELDS, ABSORB_PARTICLES, BOUNDARY
 
 
 def base_sim(nx=8, pbc_handler=None):

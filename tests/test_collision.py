@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vpic_tpu import collision as C
-from vpic_tpu.grid import partition_periodic_box
-from vpic_tpu.state import SpeciesParams, SpeciesState
+from vpic_jax import collision as C
+from vpic_jax.grid import partition_periodic_box
+from vpic_jax.state import SpeciesParams, SpeciesState
 
 
 def make_species(n, uth=(0.1, 0.1, 0.1), seed=0, cap=None, g=None):

@@ -6,8 +6,8 @@ geometry replicated everywhere."""
 import numpy as np
 import pytest
 
-import vpic_tpu as vt
-from vpic_tpu import emitter as E
+import vpic_jax as vt
+from vpic_jax import emitter as E
 
 
 def _global_faces(g, comps, topology):
@@ -71,12 +71,11 @@ def test_sharded_emission_deck_matches_single_domain():
     component list, so a cathode region local to shard 0 emitted (wrongly)
     from both shards."""
     import jax
-    from vpic_tpu.models import emission as M
+    from vpic_jax.models import emission as M
 
     counts = {}
     for topo in ((1, 1, 1), (2, 1, 1)):
         sim = M.build(M.EmissionParams(topology=topo, nx=32, ny=8))
-        sim.use_pallas = False
         state = sim.initialize()
         adv = sim.make_step()
         state = adv(state)

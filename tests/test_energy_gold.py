@@ -10,7 +10,7 @@ import os
 import jax
 import numpy as np
 
-from vpic_tpu.models import weibel
+from vpic_jax.models import weibel
 
 GOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "weibel_energies_gold.txt")

@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vpic_tpu.grid import PEC, Grid, partition_periodic_box
-from vpic_tpu.state import FieldState, MaterialCoeffs
-from vpic_tpu.ops import fields as F
-from vpic_tpu.ops import interp as I
+from vpic_jax.grid import PEC, Grid, partition_periodic_box
+from vpic_jax.state import FieldState, MaterialCoeffs
+from vpic_jax.ops import fields as F
+from vpic_jax.ops import interp as I
 
 
 def make_grid(nx=32, ny=4, nz=4, cfl=0.5):

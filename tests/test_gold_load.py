@@ -10,7 +10,7 @@ import pytest
 
 @pytest.mark.slow
 def test_gold_load_step0_energies_match_reference():
-    from vpic_tpu.models import harris
+    from vpic_jax.models import harris
 
     sim = harris.build(harris.HarrisParams(gold_load=True))
     state = sim.initialize()

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from vpic_tpu.grid import (PERIODIC, REMOTE, Grid, partition_periodic_box)
+from vpic_jax.grid import (PERIODIC, REMOTE, Grid, partition_periodic_box)
 
 
 def test_voxel_roundtrip():

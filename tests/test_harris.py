@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vpic_tpu.models import harris, weibel
-from vpic_tpu.ops import fields as F
-from vpic_tpu.ops import push as P
+from vpic_jax.models import harris, weibel
+from vpic_jax.ops import fields as F
+from vpic_jax.ops import push as P
 
 
 def run_deck(sim, n_steps):
@@ -43,7 +43,7 @@ def test_harris_particles_conserved(harris_run):
     sim, state, e0, e1 = harris_run
     # reflecting + periodic walls: no particle should be lost
     for st, sp in zip(sim.species, state.species):
-        assert int(sp.np) == len(st.xs)
+        assert int(sp.np) == len(st.rows())
 
 
 def test_harris_gauss_law(harris_run):

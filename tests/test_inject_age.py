@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import vpic_tpu as vt
-from vpic_tpu import emitter as E
+import vpic_jax as vt
+from vpic_jax import emitter as E
 
 
 def mk(age, x=0.53, capacity=100):

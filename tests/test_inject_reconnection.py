@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vpic_tpu import emitter as E
-from vpic_tpu.deck import Simulation
-from vpic_tpu.models import reconnection
+from vpic_jax import emitter as E
+from vpic_jax.deck import Simulation
+from vpic_jax.models import reconnection
 
 
 def test_runtime_injection_hook():
@@ -61,7 +61,7 @@ def test_collisional_reconnection_3d():
     # exact conservation
     assert abs(e1.sum() - e0.sum()) / e0.sum() < 3e-2
     for st, sp in zip(sim.species, state.species):
-        assert int(sp.np) == len(st.xs)
+        assert int(sp.np) == len(st.rows())
 
 
 def test_runtime_inject_f64_exact_large_grid():
@@ -103,7 +103,7 @@ def test_runtime_inject_f64_exact_large_grid():
 
     want = np.array([host_conv(v) for v in xs])
 
-    from vpic_tpu.state import SpeciesState
+    from vpic_jax.state import SpeciesState
     sp = SpeciesState.empty(M + 8)
     acc = jnp.zeros((g.nv, 12), jnp.float32)
     rhob = jnp.zeros((g.nv,), jnp.float32)

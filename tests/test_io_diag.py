@@ -10,13 +10,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vpic_tpu import checkpoint as CK
-from vpic_tpu import diagnostics as D
-from vpic_tpu import dump as DU
-from vpic_tpu.models import weibel
-from vpic_tpu.ops import hydro as H
-from vpic_tpu.ops import interp as I
-from vpic_tpu.utils.profile import Profile
+from vpic_jax import checkpoint as CK
+from vpic_jax import diagnostics as D
+from vpic_jax import dump as DU
+from vpic_jax.models import weibel
+from vpic_jax.ops import hydro as H
+from vpic_jax.ops import interp as I
+from vpic_jax.utils.profile import Profile
 
 
 @pytest.fixture(scope="module")
@@ -125,7 +125,7 @@ def test_hydro_moments_physical(wrun):
     h3 = hydro[:, 3].reshape(g.shape)
     rho_int = float(jnp.sum(h3[1:-1, 1:-1, 1:-1])) * g.dV
     assert abs(rho_int - q_tot) / abs(q_tot) < 0.35  # wrap faces excluded
-    from vpic_tpu.ops import push as P
+    from vpic_jax.ops import push as P
     ke_hydro = float(jnp.sum(hydro[:, 7].reshape(g.shape)[1:-1, 1:-1, 1:-1])
                      ) * g.dV
     ke_direct = float(P.energy_p(sp, fcoef, g, spp.q, spp.m))
@@ -154,7 +154,7 @@ def test_profile_table():
 
 
 def test_native_io_writer(tmp_path):
-    from vpic_tpu.native import io as nio
+    from vpic_jax.native import io as nio
     data = os.urandom(1 << 16)
     p = str(tmp_path / "blob")
     nio.write_file(p, data)
@@ -200,8 +200,8 @@ def test_checksum(wrun):
 def test_strided_field_hydro_dumps(tmp_path):
     """New-style stride-subsampled band dumps + global header
     (dump.cc:518+ dumpParams path)."""
-    from vpic_tpu import dump
-    from vpic_tpu.models import weibel
+    from vpic_jax import dump
+    from vpic_jax.models import weibel
     sim = weibel.build(weibel.WeibelParams(nx=8, ny=8, nppc=4,
                                            Lx=8.0, Ly=8.0))
     state = sim.initialize()
@@ -224,8 +224,8 @@ def test_strided_field_hydro_dumps(tmp_path):
 
 def test_user_global_checkpoint_roundtrip(tmp_path):
     """The user_global blob (vpic.h:189) survives checkpoint/restore."""
-    from vpic_tpu import checkpoint as ck
-    from vpic_tpu.models import weibel
+    from vpic_jax import checkpoint as ck
+    from vpic_jax.models import weibel
     sim = weibel.build(weibel.WeibelParams(nx=8, ny=8, nppc=4,
                                            Lx=8.0, Ly=8.0))
     sim.user_global = {"phase": "ramp", "t_switch": 12.5, "hits": [1, 2]}
@@ -247,7 +247,7 @@ def test_field_dump_material_ids_roundtrip(tmp_path):
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))), "utilities"))
     import read_dumps as RD
-    from vpic_tpu.deck import Simulation
+    from vpic_jax.deck import Simulation
 
     n = 8
     sim = Simulation(seed=0)
@@ -275,8 +275,8 @@ def test_checkpoint_remap_topology(tmp_path):
     decomposition restores onto a single device (and back), with
     identical global fields (interior + ghost shell), the same particle
     set (global cells + momenta), and the run continuing stably."""
-    from vpic_tpu import checkpoint as CK
-    from vpic_tpu.models import weibel
+    from vpic_jax import checkpoint as CK
+    from vpic_jax.models import weibel
 
     kw = dict(nx=8, ny=8, nppc=8, Lx=8.0, Ly=8.0, seed=3, sort_interval=0)
     sim2 = weibel.build(weibel.WeibelParams(**kw, topology=(1, 2, 1)))

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vpic_tpu.deck import Simulation, everywhere
+from vpic_jax.deck import Simulation, everywhere
 
 
 def make_sim(extra_material=None, region=None):

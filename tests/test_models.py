@@ -5,7 +5,7 @@ import jax
 import numpy as np
 import pytest
 
-from vpic_tpu.models import beam_plas, lpi
+from vpic_jax.models import beam_plas, lpi
 
 
 def run(sim, n):
@@ -42,13 +42,13 @@ def test_lpi_laser_propagates_and_heats():
     assert np.isfinite(e1).all()
     # particle counts stable (refluxed, not lost)
     for st, sp in zip(sim.species, state.species):
-        assert int(sp.np) == len(st.xs)
+        assert int(sp.np) == len(st.rows())
 
 
 def test_asymm4sp_runs_and_conserves():
     """Asymmetric 4-species reconnection deck: finite energies, rough
     total-energy conservation, and a genuinely asymmetric field."""
-    from vpic_tpu.models import asymm4sp
+    from vpic_jax.models import asymm4sp
 
     p = asymm4sp.Asymm4spParams(nx=16, ny=16, nppc_sheet=8, nppc_bg=8,
                                 Lx=8.0, Ly=8.0)

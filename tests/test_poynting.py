@@ -6,8 +6,8 @@ multiplied by e0^2)."""
 import numpy as np
 import pytest
 
-import vpic_tpu as vt
-from vpic_tpu import diagnostics as D
+import vpic_jax as vt
+from vpic_jax import diagnostics as D
 
 
 def _build(topo, nx=8, ny=8, nz=4, cvac=2.0):

@@ -7,13 +7,14 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from vpic_tpu.grid import (ABSORB_PARTICLES, REFLECT_PARTICLES,
+from vpic_jax.grid import (ABSORB_PARTICLES, REFLECT_PARTICLES,
                            partition_periodic_box)
-from vpic_tpu.state import FieldState, MaterialCoeffs, SpeciesState
-from vpic_tpu.ops import fields as F
-from vpic_tpu.ops import interp as I
-from vpic_tpu.ops import push as P
+from vpic_jax.state import FieldState, MaterialCoeffs, SpeciesState
+from vpic_jax.ops import fields as F
+from vpic_jax.ops import interp as I
+from vpic_jax.ops import push as P
 
 
 def simple_grid(n=8, L=1.0, dt=0.05):
@@ -267,3 +268,120 @@ def test_sort_p_groups_by_voxel():
     assert int(sp2.np) == 50
     # dead slots sorted to the end
     assert not np.asarray(sp2.live)[50:].any()
+
+
+def _small_3d_deck(sort_interval, n=600, seed=4):
+    import vpic_jax as vt
+    sim = vt.Simulation(seed=seed)
+    sim.define_units(1.0, 1.0)
+    g0 = vt.partition_periodic_box(0, 0, 0, 1.0, 1.0, 1.0, 8, 8, 8)
+    sim.define_timestep(0.6 * g0.courant_length())
+    sim.define_periodic_grid((0, 0, 0), (1.0, 1.0, 1.0), (8, 8, 8))
+    sim.define_material("vacuum", 1.0)
+    sim.define_field_array(damp=0.0)
+    ele = sim.define_species("electron", -1.0, 1.0, 1024,
+                             sort_interval=sort_interval)
+    rng = np.random.default_rng(seed)
+    sim.inject_particles(ele, *rng.uniform(0.0, 1.0, (3, n)),
+                         *rng.normal(0.0, 0.4, (3, n)), 1.0 / n)
+    return sim
+
+
+@pytest.mark.parametrize("sort_interval", [0, 1, 4])
+def test_deck_step_conserves_charge(sort_interval):
+    """Deck-level charge conservation over 5 steps of a small 3-D deck:
+    the current the step unloads into jf satisfies div J = -d(rho)/dt at
+    every node that no periodic face touches, whether or not (and how
+    often) the step re-sorts the particles first."""
+    sim = _small_3d_deck(sort_interval)
+    g = sim.grid
+    q = sim.species[0].params.q
+    state = sim.initialize()
+    adv = jax.jit(sim.make_advance())
+
+    def rho(sp):
+        return np.asarray(P.accumulate_rho_p(
+            jnp.zeros(g.nv, jnp.float32), sp, g, q)).reshape(g.shape)
+
+    for _ in range(5):
+        rho0 = rho(state.species[0])
+        state = adv(state)
+        rho1 = rho(state.species[0])
+        f = state.fields
+        jfx, jfy, jfz = (np.asarray(a) for a in (f.jfx, f.jfy, f.jfz))
+        s, m = slice(2, -1), slice(1, -2)       # nodes 2..n, and minus one
+        div = ((jfx[s, s, s] - jfx[s, s, m]) * g.rdx
+               + (jfy[s, s, s] - jfy[s, m, s]) * g.rdy
+               + (jfz[s, s, s] - jfz[m, s, s]) * g.rdz)
+        rhs = -(rho1 - rho0)[s, s, s] / g.dt
+        # f32 rho0/rho1 carry ~1e-7 of |rho| each; over one step |drho|
+        # is ~1e-2 of |rho|, so the difference is good to ~1e-5 of its max
+        np.testing.assert_allclose(div, rhs, atol=1e-4 * np.abs(rhs).max())
+    assert int(state.species[0].np) == 600
+
+
+def _sort_case(case):
+    """A species whose voxel column mixes grid voxels with indices >= 2^23
+    (exact in int32, not in f32); ``dead`` kills a third of the lanes and
+    gives them distinct voxels."""
+    rng = np.random.default_rng({"2d": 1, "3d": 2, "dead": 3}[case])
+    g = (partition_periodic_box(0, 0, 0, 1, 1, 1, 16, 16, 1)
+         if case == "2d" else simple_grid(n=8))
+    cap, n = 512, 400
+    vox = rng.integers(0, g.nv, cap).astype(np.int32)
+    vox[::7] = (1 << 23) + rng.integers(0, 1 << 24, vox[::7].size)
+    live = np.zeros(cap, bool)
+    live[:n] = True
+    if case == "dead":
+        live = rng.random(cap) < 0.66
+    cols = rng.normal(0, 1, (7, cap)).astype(np.float32)
+    cols[6] = np.abs(cols[6])
+    sp = SpeciesState(*(jnp.asarray(c) for c in cols[:3]),
+                      i=jnp.asarray(vox), ux=jnp.asarray(cols[3]),
+                      uy=jnp.asarray(cols[4]), uz=jnp.asarray(cols[5]),
+                      w=jnp.asarray(cols[6]), live=jnp.asarray(live),
+                      np=jnp.int32(int(live.sum())))
+    return sp
+
+
+def _rows(sp):
+    """Each lane as an exact, hashable row (float bits, voxel, live)."""
+    f = np.stack([np.asarray(getattr(sp, k)).view(np.int32) for k in
+                  ("dx", "dy", "dz", "ux", "uy", "uz", "w")], 1)
+    return sorted(map(tuple, np.column_stack(
+        [f, np.asarray(sp.i), np.asarray(sp.live)]).tolist()))
+
+
+@pytest.mark.parametrize("case", ["2d", "3d", "dead"])
+def test_sort_p_is_an_exact_permutation(case):
+    """sort_p moves whole rows: the multiset of (fields, voxel, live) rows
+    is unchanged bit for bit (voxels >= 2^23 and dead lanes' voxels
+    included), the live count is kept, and the live lanes form a prefix
+    ordered by voxel."""
+    sp = _sort_case(case)
+    out = jax.jit(P.sort_p)(sp)
+    assert _rows(out) == _rows(sp)
+    live = np.asarray(out.live)
+    n = int(np.asarray(sp.live).sum())
+    assert live[:n].all() and not live[n:].any()
+    assert int(out.np) == n
+    keys = np.asarray(out.i)[:n]
+    assert (np.diff(keys) >= 0).all()
+
+
+def test_gather_rows_keeps_each_dtype_exact():
+    """gather_rows moves int32 (beyond f32's 2^24), bool and f32 columns
+    together without rounding any of them."""
+    rng = np.random.default_rng(9)
+    n = 300
+    ints = rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int64
+                        ).astype(np.int32)
+    bools = rng.random(n) < 0.5
+    floats = rng.normal(0, 1e-38, n).astype(np.float32)   # denormals
+    src = rng.permutation(n).astype(np.int32)
+    a, b, c = P.gather_rows(jnp.asarray(src), jnp.asarray(ints),
+                            jnp.asarray(bools), jnp.asarray(floats))
+    np.testing.assert_array_equal(np.asarray(a), ints[src])
+    np.testing.assert_array_equal(np.asarray(b), bools[src])
+    np.testing.assert_array_equal(np.asarray(c).view(np.int32),
+                                  floats[src].view(np.int32))

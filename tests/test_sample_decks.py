@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vpic_tpu.models import dipole, emission, shapes, waveguide
+from vpic_jax.models import dipole, emission, shapes, waveguide
 
 
 def run(sim, n, state=None):
@@ -99,7 +99,7 @@ def test_cygnus_pulse_drives_fields():
     conductor regions with fully absorbing interior particle surfaces via
     set_region_particle_bc), size_domain/join_domain/BOUNDARY deck
     vocabulary, trapezoidal pulse through the field-injection hook."""
-    from vpic_tpu.models import cygnus
+    from vpic_jax.models import cygnus
     sim = cygnus.build(cygnus.CygnusParams(nx=64, nz=12, t_end=2e-9))
     state = run(sim, 20)
     e = np.asarray(sim.energies(state))
@@ -115,7 +115,7 @@ def test_cygnus_pulse_drives_fields():
 def test_force_free_energy_conservation():
     """sample/force_free analogue: helical force-free field + drifting
     bi-Maxwellian load; short-run energy conservation."""
-    from vpic_tpu.models import force_free
+    from vpic_jax.models import force_free
     sim = force_free.build(force_free.ForceFreeParams(
         nx=16, ny=8, nz=8, nppc=4, taui=1.0))
     state = sim.initialize()
@@ -130,7 +130,7 @@ def test_lpi_2d_decomposition():
     """sample/interface_deck_2D_decomp analogue: the LPI deck on a 2-D
     (2,1,2) device-mesh decomposition -- laser drive + absorbing x faces
     with the domain BCs applied only at outermost shards."""
-    from vpic_tpu.models import lpi
+    from vpic_jax.models import lpi
     p1 = lpi.LPIParams(topology=(1, 1, 1))
     p2 = lpi.LPIParams(topology=(2, 2, 1))
     sim1, sim2 = lpi.build(p1), lpi.build(p2)
@@ -155,7 +155,7 @@ def test_sc08_demo_runs_and_conserves():
     """sample/SC08_ONE_TRIBLADE_DEMO analogue: 3-D Harris sheet in x with
     PEC/reflecting x walls and two weighted populations; particle count
     conserved (reflecting box), energies finite and drift-bounded."""
-    from vpic_tpu.models import sc08
+    from vpic_jax.models import sc08
     sim = sc08.build(sc08.SC08Params(nx=16, ny=8, nz=8, nppc=2))
     state = sim.initialize()
     n0 = int(sum(np.asarray(sp.np).sum() for sp in state.species))

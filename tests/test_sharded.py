@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vpic_tpu.models import harris, weibel
-from vpic_tpu.parallel import mesh as M
+from vpic_jax.models import harris, weibel
+from vpic_jax.parallel import mesh as M
 
 
 def run(sim, n_steps):
@@ -67,7 +67,7 @@ def test_pcomm_migration_roundtrip():
     """pcomm analogue: ballistic particles crossing shard boundaries on an
     8-device (2,2,2) periodic mesh return to their start after a full
     periodic transit."""
-    from vpic_tpu.deck import Simulation, everywhere
+    from vpic_jax.deck import Simulation, everywhere
 
     n, ns = 8, 2
     sim = Simulation(seed=0)

@@ -13,7 +13,7 @@ import os
 import numpy as np
 import pytest
 
-import vpic_tpu.models.weibel_gold as weibel_gold
+import vpic_jax.models.weibel_gold as weibel_gold
 
 GOLD = "/root/reference/test/unit/energy_comparison/energies_gold"
 
@@ -33,7 +33,7 @@ def _rng_vectors():
 
 
 def test_vpic_rng_matches_reference_stream():
-    from vpic_tpu.utils.vpic_rng import VpicRng
+    from vpic_jax.utils.vpic_rng import VpicRng
     u64, drand, drandn = _rng_vectors()
     r = VpicRng(4)
     assert [r._next_u64() for _ in range(6)] == u64
@@ -57,7 +57,7 @@ def test_entropy_pool_seeding_matches_gold_load():
     # host-side: sum w m c^2 (gamma - 1) over the staged injected load
     def ke(name):
         st = next(s for s in sim.species if s.params.name == name)
-        xs = np.asarray(st.xs, np.float64)   # rows per inject_particle
+        xs = st.rows()   # one row per injected particle
         ux, uy, uz, w = xs[:, 6], xs[:, 7], xs[:, 8], xs[:, 9]
         g = np.sqrt(1.0 + ux ** 2 + uy ** 2 + uz ** 2)
         return float(np.sum(w * st.params.m * (g - 1.0)))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Post-processing reader for the V0-format binary dumps written by
-vpic_tpu.dump (the analogue of the reference's MATLAB/IDL loaders,
+vpic_jax.dump (the analogue of the reference's MATLAB/IDL loaders,
 interfaces/matlab/*.m).  Pure numpy; no framework import needed."""
 
 import struct
@@ -83,7 +83,7 @@ def _stitch(fbase, tag, topology, reader):
     (interfaces/c/joiner).  `topology` is the (px, py, pz) decomposition
     (the V0 header carries rank/nproc but not the topology, exactly like
     the reference, whose joiner reads it from the global.vpc manifest).
-    Rank order matches vpic_tpu.dump._shard_iter: x-major, z-minor."""
+    Rank order matches vpic_jax.dump._shard_iter: x-major, z-minor."""
     px, py, pz = topology
     n = px * py * pz
     hdr0 = None

@@ -1,27 +1,41 @@
-"""vpic_tpu: a TPU-native relativistic electromagnetic particle-in-cell
-framework with the capabilities of VPIC (LANL's Vector Particle-In-Cell code),
-built on JAX/XLA (+ Pallas kernels for the hot paths).
+"""The package's former name, kept so that decks and launchers written
+against it keep working: importing it, or any submodule through it, gives
+the same module objects as ``vpic_jax``, and ``python -m`` with it runs the
+vpic_jax CLI.  A rank set in the environment variable of the former name
+(``<FORMER NAME>_RANK``) is passed on as ``VPIC_RANK``."""
 
-Layer map (mirrors SURVEY.md section 1):
-  deck.Simulation     -- input-deck vocabulary + step orchestration
-  ops.push            -- particle engine (advance_p/move_p/sort/energy/rho)
-  ops.fields          -- Yee FDTD solver, div cleaners, BCs, synchronization
-  ops.interp          -- interpolator / accumulator field<->particle interface
-  parallel            -- device-mesh decomposition, halo exchange, migration
-  boundary / collision / emitter -- particle BCs, Monte-Carlo collisions,
-                          emission models
-  checkpoint / dump   -- checkpoint-restart and binary diagnostics I/O
-"""
+import importlib
+import importlib.abc
+import importlib.util
+import os
+import sys
 
-from .grid import (ABSORB_FIELDS, ABSORB_PARTICLES, ANTI_SYMMETRIC, BOUNDARY,
-                   METAL, PEC, PERIODIC, PMC, REFLECT_PARTICLES, SYMMETRIC,
-                   Grid, partition_absorbing_box, partition_metal_box,
-                   partition_periodic_box)
-from .state import (FieldState, MaterialCoeffs, SimState, SpeciesParams,
-                    SpeciesState)
-from .deck import Material, Simulation, everywhere
-from .utils.log import error, message, sim_log, warning
-from . import (boundary_ops, checkpoint, collision, diagnostics, dump,
-               emitter)  # noqa: F401
+import vpic_jax
 
-__version__ = "0.1.0"
+_OLD = __name__
+_OLD_RANK = _OLD.upper() + "_RANK"
+if _OLD_RANK in os.environ:
+    os.environ.setdefault("VPIC_RANK", os.environ[_OLD_RANK])
+
+
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """``<former>.<sub>`` -> the module ``vpic_jax.<sub>`` itself (``__main__``
+    is left to the path finder, which runs vpic_jax/__main__.py)."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(_OLD + ".") and not name.endswith(".__main__"):
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        module = importlib.import_module("vpic_jax" + spec.name[len(_OLD):])
+        spec.loader_state = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # the import system set the alias spec on the module; put back its own
+        module.__spec__ = module.__spec__.loader_state
+
+
+sys.meta_path.insert(0, _Alias())
+sys.modules[_OLD] = vpic_jax
